@@ -15,7 +15,7 @@ from goicp_tpu.bnb import BnbParams, register
 from goicp_tpu.core.cache import enable_persistent_cache
 from goicp_tpu.io import load_cloud
 
-enable_persistent_cache()   # 20-40 s TPU compiles cache across runs
+enable_persistent_cache()   # later runs start warm
 
 src = load_cloud("data/bunny/data_bunny.txt", subsample=0.1, seed=0)
 tgt = load_cloud("data/bunny/model_bunny.txt", subsample=0.1, seed=0)

@@ -1,16 +1,17 @@
-"""goicp_tpu — TPU-native globally-optimal point-cloud registration.
+"""goicp_tpu — accelerator-native globally-optimal point-cloud registration.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
 Go-ICP reference (ICP + Go-ICP branch-and-bound registration, five run
 modes, TOML scenario configs, PLY/TXT point-cloud IO, live solver-state
-reporting, result artifacts), re-designed TPU-first:
+reporting, result artifacts), re-designed around batched device work:
 
 - bound evaluation is *batched over cubes* (``[B]`` leading axis) instead of
   one CUDA kernel launch per translation node on a stream
   (reference: ``src/fgoicp/registration.cu:88-151``),
 - nearest-neighbor distance comes from a dense distance field queried with
   vectorized gathers (reference: 3D CUDA texture, ``registration.cu:179-296``)
-  or from exact brute force recast as tiled MXU/VPU ops
+  or from exact brute force recast as tiled dense ops and fused Pallas
+  kernels
   (reference: ``src/fgoicp/icp3d.cu:13-30``),
 - the local ICP refiner is a jitted ``lax.while_loop`` batched over poses
   (reference refines one pose at a time, ``src/fgoicp/fgoicp.cpp:75-91``),

@@ -1,6 +1,6 @@
 // goicp_tpu native runtime: BnB frontier store + selection + fast TXT IO.
 //
-// TPU-native counterpart of the reference's host-side runtime pieces:
+// Batched counterpart of the reference's host-side runtime pieces:
 //  - std::priority_queue<RotNode>/<TransNode> (src/common.h:88-95,123-130)
 //    -> handle-based SoA frontier with BATCH pops (the device consumes
 //       hundreds of cubes per step; a one-at-a-time binary heap is the wrong

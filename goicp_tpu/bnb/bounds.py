@@ -1,14 +1,14 @@
 """Fused BnB bound evaluation — the hot path of the global solver.
 
-TPU recast of ``kernComputeBounds`` + per-stream thrust reduces
+Batched recast of ``kernComputeBounds`` + per-stream thrust reduces
 (``src/fgoicp/registration.cu:27-60,88-151``).  Where the reference evaluates
 **one** translation node per kernel launch on one of 32 streams, here a flat
 batch of ``M`` *jobs* — (rotation, translation cube, with/without rotation
 uncertainty) triples — is evaluated in one jitted device step:
 
-    transform  [M,N,3]  (einsum on MXU)
+    transform  [M,N,3]  (einsum, full f32)
  →  distance-field lookup  [M,N]  (trilinear gather ≙ tex3D)
- →  uncertainty-deflated clamp + square  (VPU, fused by XLA)
+ →  uncertainty-deflated clamp + square  (elementwise, fused by XLA)
  →  (trimmed) row reductions → center value + node lower bound  [M]
 
 Correctness upgrades over the reference (SURVEY §2 C17 notes):

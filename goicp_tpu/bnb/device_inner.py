@@ -1,10 +1,10 @@
 """Device-resident inner BnB: the whole translation search as ONE jitted call.
 
-This is the decisive TPU restructuring of the reference's
+This is the decisive batched restructuring of the reference's
 ``branch_and_bound_R3`` (``src/fgoicp/fgoicp.cpp:107-181``).  The reference
 pops one TransNode per stream iteration and pays a kernel launch + host sync
 per node; a first host-driven port here still paid one dispatch per frontier
-*level* — fatal over a remote-device link.  This version runs the complete
+*level*, one host round trip each.  This version runs the complete
 search for a *batch* of rotation cubes inside a single ``lax.while_loop``:
 
 - frontier: fixed-capacity array ``[G, C]`` of translation cubes per rotation
@@ -19,7 +19,7 @@ search for a *batch* of rotation cubes inside a single ``lax.while_loop``:
   bounds into an ``unresolved`` term so the returned bound keeps the same
   ε-optimality guarantee as the references;
 - point-tiled reductions: distances stream through ``[G, C, tile]`` blocks
-  (VMEM-sized) with running sum + running ``top_k`` for trimmed objectives
+  with running sum + running ``top_k`` for trimmed objectives
   (≙ ``intro_select``, ``jly_sorting.hpp:229``).
 
 Returned per rotation cube: ``inc_ub`` (min evaluated plain SSE — the cube's
@@ -78,11 +78,11 @@ def _exact_min_d2(pts, tgt_tiles, tgt_norm_tiles):
     """Exact min squared distance: ``pts [..., 3]`` vs target tiles
     ``[Tt, tile_t, 3]`` (+1e30-padded), with ``|t|²`` tiles precomputed.
 
-    The TPU surprise mirrored from the reference's own finding
+    Mirrors the reference's own finding
     (``README.md:103-106``: brute force beats trees on GPU): for small and
-    mid-size targets, streaming dense distance tiles beats random HBM gathers
+    mid-size targets, streaming dense distance tiles beats random gathers
     into a distance grid — and the bounds become *exact* (no discretization
-    slack), which prunes harder.  The inner product rides the MXU via the
+    slack), which prunes harder.  The inner product is a matmul via the
     ``|p|² − 2p·t + |t|²`` expansion; per-scan-step intermediates are
     ``[X, tile_t]`` only (a naive broadcast difference materializes the full
     pts×targets×3 tensor and OOMs at BnB batch sizes).
@@ -93,7 +93,7 @@ def _exact_min_d2(pts, tgt_tiles, tgt_norm_tiles):
 
     def body(best, xs):
         t_tile, tn = xs                                    # [tile_t,3], [tile_t]
-        dots = jnp.dot(flat, t_tile.T, precision=_PREC)    # [X, tile_t] — MXU
+        dots = jnp.dot(flat, t_tile.T, precision=_PREC)    # [X, tile_t]
         d2 = tn[None, :] - 2.0 * dots                      # |t|² − 2p·t
         return jnp.minimum(best, jnp.min(d2, axis=-1)), None
 

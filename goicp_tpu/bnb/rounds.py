@@ -253,9 +253,8 @@ class Se3RoundDriver:
             from goicp_tpu.bnb.se3 import se3_round_grouped
 
             # tight bound: ship (centers, spans) and compute the angle
-            # IN-PROGRAM (tuple form of max_angle — see se3_round docs; a
-            # separate chained jit call per round serialized the remote-TPU
-            # dispatch queue)
+            # IN-PROGRAM (tuple form of max_angle — see se3_round docs: a
+            # round stays one dispatch)
             ang_in = (
                 (
                     jnp.asarray(

@@ -9,7 +9,7 @@ Loads the TOML config, the two clouds, dispatches on ``params.mode``
 reference promised but never produced (``io.output`` result TOML and
 ``io.visualization`` PLY, ``src/common.cpp:48-49``).
 
-Mode mapping (reference semantics → TPU implementation):
+Mode mapping (reference semantics → implementation here):
 
 - 0 ``ICP_CPU``  / 1 ``ICP_GPU``: iterated ICP with exact brute-force NN
   (≙ ``icp_kernel.cu:48-217``) — one jitted solve, not one step per frame.
@@ -311,7 +311,7 @@ def run_scenario(
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="goicp_tpu", description="TPU-native (Go-)ICP registration"
+        prog="goicp_tpu", description="globally-optimal (Go-)ICP registration"
     )
     ap.add_argument("config", help="scenario TOML (reference-compatible schema)")
     ap.add_argument("--output", default=None, help="artifact directory (default: cwd)")

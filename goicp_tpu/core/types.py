@@ -1,6 +1,6 @@
 """Core data types: rigid transforms, BnB cube batches, bounds.
 
-TPU-first counterparts of the reference's node structs
+Batched counterparts of the reference's node structs
 (``src/common.h:25-131``: ``Rotation``, ``RotNode``, ``TransNode``).  Where the
 reference keeps one node per C++ struct ordered in a ``std::priority_queue``,
 this framework keeps *batches* of cubes as structure-of-arrays so an entire
@@ -16,8 +16,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# f32 everywhere: default TPU matmul precision is bf16, far too coarse for
-# registration at mse 1e-5 (see geo/procrustes.py).
+# f32 everywhere: a reduced-precision matmul (bf16 passes, or TF32 on a GPU)
+# is far too coarse for registration at mse 1e-5 (see geo/procrustes.py).
 _PREC = jax.lax.Precision.HIGHEST
 
 

@@ -46,7 +46,8 @@ exchange, the root partition, rebalancing, and consistent-cut checkpoints.
 
 Run one process per host with ``jax.distributed.initialize`` (tested
 multi-process on a single machine with the Gloo CPU backend —
-``tests/test_multihost.py``); on TPU pods the same code rides ICI/DCN.
+``tests/test_multihost.py``); on an accelerator cluster the same code
+rides its interconnect.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ This module generalizes that axis to a ``("cubes", "points")`` device mesh
 - **cubes**: each round's flat job batch of SE(3) nodes is sharded across
   devices — every chip evaluates a slice of the frontier pops;
 - **points**: the source cloud is sharded; every per-node bound reduction
-  (plain and trimmed) becomes a ``psum``/``pmax`` collective over ICI.
+  (plain and trimmed) becomes a ``psum``/``pmax`` collective.
 
 The round returns *globally* reduced results: the incumbent candidates
 (min-ub node, ICP-refined top-k) are computed on the logical ``[M]`` arrays
@@ -21,9 +21,10 @@ slices pops per host the same way — ``multipair.register_pairs`` documents
 the per-host slicing convention).
 
 Backends mirror ``bnb.se3``: "exact"/"grid" are the XLA tile-scan bound
-kernels with point-shard psum epilogues; "mxu" runs the fused Pallas kernel
-(``nn.mxu``) per device on its (node-shard × query-column-shard) block —
-``shard_map`` is the idiomatic way to run a Pallas kernel SPMD.
+kernels with point-shard psum epilogues; "mxu" runs the per-point Pallas
+kernel (``nn.mxu.min_d2_nodes``) per (node-shard × point-shard) block;
+"screen" runs the fused screened kernel per cube shard — ``shard_map`` is
+the idiomatic way to run a Pallas kernel SPMD.
 """
 
 from __future__ import annotations
@@ -125,15 +126,16 @@ def make_sharded_se3_round(
     drop = 0 if h in (0, n_valid) else n_valid - h
     from goicp_tpu.nn import mxu as _mxu
 
-    if backend == "screen" and mesh.shape["points"] != 1:
+    if backend == "screen" and (mesh.shape["points"] != 1 or drop):
         # the progressive screen compares PARTIAL point sums against the
         # global threshold — invalid on a point shard (a shard's partial sum
-        # bounds only its slice).  Cube-only meshes screen per shard.
+        # bounds only its slice) and for trimmed sums.  Untrimmed cube-only
+        # meshes screen per shard.
         backend = "mxu"
 
     if backend == "screen":
 
-        def kernel(src_pad, norms_pad, grid, tgt_packed, slack, thresh,
+        def kernel(src_pad, norms_pad, grid, tgt, slack, thresh,
                    R, max_angle, t_c, t_span, mask):
             # whole cloud per shard (points extent 1): the fused screened
             # kernel evaluates this device's node slice exactly as the
@@ -144,22 +146,17 @@ def make_sharded_se3_round(
             src = jax.lax.slice_in_dim(src_pad, 0, n_valid, axis=0)
             norms = jax.lax.slice_in_dim(norms_pad, 0, n_valid, axis=0)
             return evaluate_se3_nodes_screened(
-                src, norms, tgt_packed, slack, thresh,
+                src, norms, tgt, slack, thresh,
                 R, max_angle, t_c, t_span, mask, h=h,
             )
 
     elif backend == "mxu":
 
-        def kernel(src_pad, norms_pad, grid, tgt_packed, slack, thresh,
+        def kernel(src_pad, norms_pad, grid, tgt, slack, thresh,
                    R, max_angle, t_c, t_span, mask):
-            # local shards: src_pad [Nl,3], R [Ml,3,3]; tgt replicated [Mp,8]
+            # local shards: src_pad [Nl,3], R [Ml,3,3]; tgt replicated
             nl = src_pad.shape[0]
-            srcT = jnp.zeros((8, nl), jnp.float32).at[0:3].set(src_pad.T)
-            params = _mxu.pack_params(R, t_c)
-            d2 = _mxu._min_d2_padded(
-                params, srcT, tgt_packed, want_idx=False,
-                interpret=not _mxu._on_tpu(), variant="diff",
-            )[0]                                          # [Ml, Nl]
+            d2 = _mxu.min_d2_nodes(src_pad, tgt, R, t_c)[:, :nl]
             return _deflate_reduce(
                 d2, src_pad, norms_pad, slack, max_angle, t_span, mask
             )
@@ -237,7 +234,7 @@ def make_sharded_se3_round(
             P("points", None),    # src_pad
             P("points"),          # norms_pad
             P(),                  # grid (replicated pytree)
-            tgt_spec,             # tgt / tgt_packed
+            tgt_spec,             # tgt (tile-padded for "exact")
             P(),                  # slack
             P(),                  # thresh (screen backend; others ignore)
             P("cubes", None, None),
@@ -260,11 +257,7 @@ def make_sharded_se3_round(
             run_icp,
         )
 
-        if backend == "mxu":
-            tgt_b = _mxu.pack_targets(tgt)
-        elif backend == "screen":
-            tgt_b = tgt        # the screened evaluator packs internally
-        elif backend == "exact":
+        if backend == "exact":
             padt = (-tgt.shape[0]) % 256
             tgt_b = (
                 jnp.concatenate([tgt, jnp.full((padt, 3), 1e15, tgt.dtype)])

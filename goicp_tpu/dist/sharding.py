@@ -3,14 +3,14 @@
 The reference is a single-process, single-GPU program (SURVEY §2 parallelism
 inventory); its only concurrency is 32 CUDA streams of width-1 translation
 batches (``fgoicp.hpp:24``, ``registration.cu:109-120``) and a render/solver
-thread pair.  The TPU framework scales along the two axes that exist in this
+thread pair.  This framework scales along the two axes that exist in this
 workload:
 
 - **cube axis** (the PP/EP analogue): the flat job batch of (rotation,
   translation-cube) bound evaluations is sharded across devices — each chip
   evaluates a slice of the frontier;
 - **point axis** (the DP/SP analogue): the source cloud is sharded; per-job
-  SSE/bound sums become ``psum`` reductions over ICI.
+  SSE/bound sums become ``psum`` reductions.
 
 Both are expressed with ``jax.sharding.Mesh`` + ``shard_map``; XLA inserts
 the collectives.  1 chip → N chips is a mesh-shape change only.

@@ -6,9 +6,9 @@ Normals enable the point-to-plane metric in :mod:`goicp_tpu.icp.solver`,
 which converges in far fewer iterations on real scan data (Chen & Medioni
 1991); this is a capability upgrade, not a port.
 
-TPU-first design: the k-NN search is the same tiled dense pattern as
-:mod:`goicp_tpu.nn.brute` (no trees, no gathers over HBM-resident distance
-matrices — query blocks stream through VMEM), and the smallest eigenvector
+Design: the k-NN search is the same tiled dense pattern as
+:mod:`goicp_tpu.nn.brute` (no trees; one ``[block, N]`` distance tile per
+query block), and the smallest eigenvector
 of each 3x3 neighborhood covariance is closed-form (trigonometric
 eigenvalues + cross-product eigenvector), so the whole estimate is one jit
 with no host round-trips and no ``eigh`` lowering.
@@ -87,8 +87,8 @@ def estimate_normals(points, k: int = 16, block: int = 1024):
     Orientation is arbitrary (sign-ambiguous) — the point-to-plane metric
     squares the residual, so no consistent orientation pass is needed.
     Blocked over queries: each block materializes a ``[block, N]`` distance
-    tile (VMEM-friendly), selects k neighbors with ``top_k``, and reduces
-    the 3x3 covariance; nothing of O(N^2) reaches HBM.
+    tile, selects k neighbors with an exact ``top_k``, and reduces the 3x3
+    covariance; nothing of O(N^2) is materialized at once.
     """
     pts = jnp.asarray(points, jnp.float32)
     n = pts.shape[0]
@@ -97,10 +97,6 @@ def estimate_normals(points, k: int = 16, block: int = 1024):
     q = jnp.concatenate([pts, jnp.zeros((pad, 3), jnp.float32)], axis=0)
     q = q.reshape(-1, block, 3)
 
-    from goicp_tpu.nn.mxu import _on_tpu
-
-    on_tpu = _on_tpu()
-
     def one_block(qb):
         d2 = (
             jnp.sum(qb * qb, axis=-1)[:, None]
@@ -108,16 +104,7 @@ def estimate_normals(points, k: int = 16, block: int = 1024):
                                precision=jax.lax.Precision.HIGHEST)
             + jnp.sum(pts * pts, axis=-1)[None, :]
         )                                                    # [block, N]
-        if on_tpu and n > 2048:
-            # exact top_k over a 10k-wide row compiles for MINUTES on TPU
-            # (measured 525 s cold for 10654 targets); the TPU-native
-            # PartialReduce at recall 0.95 is compile-fast and a ~0.95-recall
-            # neighbor set leaves PCA normals unchanged to ~1e-3 (measured:
-            # 95% of bunny normals within |dot|>0.99 of exact).  Narrow rows
-            # compile fine and stay exact.
-            _, idx = jax.lax.approx_min_k(d2, kk, recall_target=0.95)
-        else:
-            _, idx = jax.lax.top_k(-d2, kk)                  # [block, kk]
+        _, idx = jax.lax.top_k(-d2, kk)                      # [block, kk]
         nbr = pts[idx]                                       # [block, kk, 3]
         mu = jnp.mean(nbr, axis=1, keepdims=True)
         d = nbr - mu

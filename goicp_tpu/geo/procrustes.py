@@ -6,7 +6,7 @@ a time: McAdams ``svd3.h`` (``src/icp_kernel.cu:28-46``), Eigen ``JacobiSVD``
 (``src/goicp/matrix.cpp:602``), each followed by the determinant correction
 ``R = V diag(1,1,det(VU^T)) U^T``.
 
-TPU-first replacement: **Horn's quaternion method**, fully batched and
+Batched replacement: **Horn's quaternion method**, fully batched and
 device-resident.  The optimal rotation is the dominant eigenvector of a 4x4
 symmetric matrix built from the cross-covariance — no SVD, no det correction
 (the result is always a proper rotation), no host round-trip per iteration
@@ -22,8 +22,8 @@ import jax.numpy as jnp
 
 from goicp_tpu.geo.rotation import quat_to_matrix
 
-# Small-K contractions must not drop to bf16 MXU passes on TPU: registration
-# works at mse thresholds down to 1e-5 (test/bunny_icp.toml:20).
+# Small-K contractions must run in full f32 (no bf16 passes, no TF32):
+# registration works at mse thresholds down to 1e-5 (test/bunny_icp.toml:20).
 _PREC = jax.lax.Precision.HIGHEST
 
 
@@ -48,7 +48,7 @@ def horn_quaternion(C, squarings: int = 5, iters: int = 8):
 
     ``K + 2|C|_F I`` is PSD with the same dominant eigenvector.  Repeated
     matrix squaring raises the spectral ratio to the ``2^squarings`` power
-    (all 4x4 batched matmuls — MXU/VPU friendly, no lax control flow), then a
+    (all 4x4 batched matmuls, no lax control flow), then a
     few power-iteration matvecs polish.  Degenerate inputs (``C = 0``) return
     the identity quaternion.
     """

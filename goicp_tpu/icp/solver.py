@@ -8,15 +8,14 @@ host SVD round-trip per iteration:
 - the GPU BnB's ``IterativeClosestPoint3D::run`` (``src/fgoicp/icp3d.cu:83-108``),
 - the CPU BnB's ``ICP3D<T>::Run`` (``src/goicp/jly_icp3d.hpp:181-297``).
 
-TPU-first inversion: one ``lax.while_loop`` refines a **batch** ``[B]`` of
+Batched inversion: one ``lax.while_loop`` refines a **batch** ``[B]`` of
 poses simultaneously (the BnB refines every promising cube in one device
 step, SURVEY §7.5); the Procrustes update is Horn's quaternion method
 (``goicp_tpu.geo.procrustes``) so no iteration ever leaves the device.
 Correspondences come from either the exact tiled brute-force NN
 (≙ ``kernFindNearestNeighbor``, ``icp3d.cu:13-30``) or the distance-grid
 index field (≙ the flattened k-d tree of ``icp_kernel.cu:281-377``, which the
-reference found slower than dense lookups on GPU — same conclusion holds
-harder on TPU).
+reference found slower than dense lookups on GPU).
 
 Trimming: per-pose ``top_k`` selection of the ``n*(1-trim)`` closest pairs
 (≙ the qsort at ``jly_icp3d.hpp:238`` / ``intro_select``), as 0/1 weights
@@ -38,7 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Optional
+from typing import Any, Callable
 
 import jax
 import jax.numpy as jnp
@@ -73,38 +72,17 @@ jax.tree_util.register_pytree_node(
 )
 
 
-def exact_correspondence(
-    targets, use_pallas: Optional[bool] = None, normals=None
-) -> Callable:
-    """Correspondence closure: exact brute-force NN against ``targets [Nt,3]``.
-
-    Default (None): on TPU the fused VMEM-resident MXU kernel
-    (``goicp_tpu.nn.mxu``) is used — it beats the XLA scan path by keeping
-    the distance tiles out of HBM (measured round 2); elsewhere (CPU test
-    mesh) the XLA path runs.  ``GOICP_TPU_PALLAS=0`` forces XLA everywhere;
-    ``use_pallas=True`` forces the kernel (interpret mode off-TPU).
+def exact_correspondence(targets, normals=None) -> Callable:
+    """Correspondence closure: exact brute-force NN against ``targets [Nt,3]``
+    (``nn.brute.nearest_neighbor``, elementwise f32).
 
     With ``normals [Nt,3]`` the closure returns ``(dst, nrm, d2)`` (the
     plane-metric contract); without, ``(dst, d2)``."""
-    import os
-
     targets = jnp.asarray(targets, jnp.float32)
     nrms = None if normals is None else jnp.asarray(normals, jnp.float32)
-    if use_pallas is None:
-        env = os.environ.get("GOICP_TPU_PALLAS")
-        if env is not None:
-            use_pallas = env == "1"
-        else:
-            from goicp_tpu.nn.mxu import _on_tpu
-
-            use_pallas = _on_tpu()
-    if use_pallas:
-        from goicp_tpu.nn.mxu import nearest_neighbor_mxu as _nn
-    else:
-        _nn = nearest_neighbor
 
     def corr(pts):
-        d2, idx = _nn(pts, targets)
+        d2, idx = nearest_neighbor(pts, targets)
         dst = jnp.take(targets, idx, axis=0)
         if nrms is None:
             return dst, d2
@@ -159,7 +137,7 @@ def _plane_update(pts, dst, nrm, w):
     a = jnp.cross(pts, nrm)                                  # [...,N,3]
     J = jnp.concatenate([a, nrm], axis=-1)                   # [...,N,6]
     Jw = J if w is None else J * w[..., None]
-    hp = jax.lax.Precision.HIGHEST  # TPU matmuls default to bf16
+    hp = jax.lax.Precision.HIGHEST  # full f32: no reduced-precision passes
     H = jnp.einsum("...ni,...nj->...ij", Jw, J, precision=hp)  # [...,6,6]
     g = jnp.einsum("...ni,...n->...i", Jw, r, precision=hp)    # [...,6]
     damp = 1e-6 * (jnp.trace(H, axis1=-2, axis2=-1) / 6.0 + 1e-12)

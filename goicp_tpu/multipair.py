@@ -1,8 +1,8 @@
-"""Batched multi-pair registration — the pod-scale serving surface.
+"""Batched multi-pair registration — the many-pair serving surface.
 
 The reference registers exactly one (source, target) pair per process
 (``src/main.cpp``).  Production registration workloads (scan matching,
-re-localization, dataset alignment) solve MANY pairs; the TPU-shaped answer
+re-localization, dataset alignment) solve MANY pairs; the accelerator answer
 is to batch them:
 
 - :func:`icp_pairs` — one device dispatch refines B pose hypotheses, one per
@@ -269,7 +269,6 @@ def lockstep_compatible(p: BnbParams, n_src: int, n_tgt: int) -> bool:
 
 from goicp_tpu.multipair_lockstep import (  # noqa: F401,E402
     _bounds_one_pair,
-    _bounds_one_pair_mxu,
     _deflate_pair,
     _pairs_round,
     _register_pairs_lockstep,

@@ -1,6 +1,6 @@
 """Dense distance field over the target cloud (the BnB hot-path backend).
 
-Replaces both reference NN-field structures with one TPU-native module:
+Replaces both reference NN-field structures with one device-resident module:
 
 - fgoicp's ``NearestNeighborLUT`` — n^3 brute-forced squared distances in a
   CUDA 3D texture with hardware trilinear interpolation
@@ -15,8 +15,7 @@ assumption), and two build paths:
 - ``method="brute"``: exact min squared distance from every cell center to
   the *true* target points (same semantics as ``buildLUTKernel``,
   ``registration.cu:238-258``), recast as x-slab scans whose inner distance
-  computation is an MXU matmul (measured ~4.6T point-pairs/s on TPU v5e vs.
-  the thread-per-cell CUDA loop).
+  computation is a matmul (instead of the thread-per-cell CUDA loop).
 - ``method="edt"``: rasterize targets to the grid, then exact-to-the-raster
   squared EDT via three separable min-plus (tropical) transforms — the
   Felzenszwalb/Huttenlocher decomposition of what jly's 2-sweep vector DT
@@ -94,7 +93,7 @@ def grid_domain(
 
 @functools.partial(jax.jit, static_argnames=("n", "with_index", "slab"))
 def _build_brute(targets, origin, cell, n: int, with_index: bool, slab: int = 4):
-    """Exact build: scan over x-slabs; distances via |q|^2-2qt+|t|^2 on MXU."""
+    """Exact build: scan over x-slabs; distances via |q|^2-2qt+|t|^2 matmuls."""
     tn = jnp.sum(targets * targets, axis=1)  # [Nt]
 
     iy = jax.lax.broadcasted_iota(jnp.int32, (slab, n, n), 1)
@@ -110,7 +109,7 @@ def _build_brute(targets, origin, cell, n: int, with_index: bool, slab: int = 4)
         qn = jnp.sum(cells * cells, axis=1)
         dots = jnp.dot(
             cells, targets.T, precision=jax.lax.Precision.HIGHEST
-        )  # [slab*n*n, Nt]  — MXU
+        )  # [slab*n*n, Nt]
         d2 = qn[:, None] - 2.0 * dots + tn[None, :]
         vals = jnp.maximum(jnp.min(d2, axis=1), 0.0).reshape(slab, n, n)
         if with_index:
@@ -137,8 +136,8 @@ def _minplus_axis(D, I, c2, axis: int, chunk: Optional[int] = None):
     ``D'[i] = min_j D[j] + c2*(i-j)^2``, with argmin payload carry ``I``.
 
     Tiled over output columns: each ``lax.scan`` step produces ``chunk``
-    output planes from the full input — pure VPU adds/mins over
-    VMEM-resident tiles, no gathers, no MXU dependency.
+    output planes from the full input — pure elementwise adds/mins over
+    tiles, no gathers, no matmuls.
     """
     n = D.shape[axis]
     if chunk is None:
@@ -174,7 +173,7 @@ def _build_edt(targets, origin, cell, n: int, with_index: bool = True):
     centers — the Felzenszwalb/Huttenlocher decomposition of what jly's
     2-sweep vector DT approximates.  Cost O(n^4) independent of target count
     (the brute build is O(n^3·Nt): hopeless for big clouds, and its K=3
-    matmuls can't feed the MXU).  Accuracy vs. true points: half the cell
+    matmuls leave a matrix unit idle).  Accuracy vs. true points: half the cell
     diagonal (the accuracy class the reference notes at ``jly_3ddt.cpp:925``),
     recorded as ``raster_err`` so bound evaluation can stay conservative.
     Also returns per-cell nearest-target indices (payload-carried argmin).

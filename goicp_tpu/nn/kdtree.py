@@ -3,8 +3,8 @@
 The reference builds nanoflann k-d trees (``src/kdTree.hpp:44-77``) and even
 flattens one for in-kernel GPU traversal (``src/icp_kernel.cu:281-377``),
 then concludes the tree LOSES to dense lookups on GPU (``README.md:103-106``).
-The same conclusion holds harder on TPU (pointer-chasing is hostile to both),
-so the compute path uses dense fields / streamed brute force; this module
+Pointer-chasing is hostile to wide accelerators in general, so the compute
+path uses dense fields / streamed brute force; this module
 exists for host-side verification oracles and as the C9 component parity.
 
 Uses scipy's cKDTree when available, else a small pure-numpy implementation.

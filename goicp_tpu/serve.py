@@ -3,7 +3,7 @@
 The reference binary registers exactly one (source, target) pair per process
 launch (``src/main.cpp:14-33``: argv[1] TOML, one solve, exit).  Production
 re-localization / scan-matching workloads answer MANY queries against one
-resident model.  The TPU-shaped serving design keeps everything expensive
+resident model.  The serving design keeps everything expensive
 resident and warm between queries:
 
 - the **target cloud** and its **distance field** are built once

@@ -3,7 +3,7 @@
 A direct, unoptimized implementation of Yang et al.'s nested BnB with EXACT
 nearest-neighbor distances (no DT/LUT approximation) — the semantics of
 ``src/goicp/jly_goicp.cpp`` reduced to its mathematical core.  Used only in
-tests on very small clouds to validate that the TPU solver's results are
+tests on very small clouds to validate that the device solver's results are
 ε-optimal; deliberately independent of every goicp_tpu device code path.
 """
 

@@ -251,9 +251,9 @@ def test_coarse_to_fine_multistart_recovers():
     assert rmse < 2e-3, (rmse, res.converged)
 
 
-def test_screened_solve_matches_unscreened():
+def test_screened_solve_matches_unscreened(interpret_kernels):
     """The progressive-screening backend ("screen", interpret mode on CPU)
-    must converge to the same pose as the unscreened mxu kernel — screening
+    must converge to the same pose as the unscreened "mxu" path — screening
     only skips work on nodes whose partial lb already proves them prunable."""
     rng = np.random.default_rng(11)
     src = (rng.random((200, 3)).astype(np.float32) - 0.5) * 0.6

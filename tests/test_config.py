@@ -1,36 +1,43 @@
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from goicp_tpu.core.config import Config, Mode
 
-REF_TEST = "/root/reference/test"
+SCENARIOS = Path(__file__).resolve().parents[1] / "scenarios"
 
 
 @pytest.mark.parametrize(
-    "name,mode,subsample,mse,resize",
+    "name,mode,subsample,mse,resize,trim",
     [
-        ("bunny_icp.toml", Mode.ICP_GPU, 1.0, 1e-5, 15.0),
-        ("bunny_goicp.toml", Mode.GOICP_CPU, 0.1, 1e-3, 1.0),
-        ("skull_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-3, 0.01),
-        ("face_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-3, 0.007),
-        ("spanner_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-4, 0.02),
+        ("bunny_icp.toml", Mode.ICP_GPU, 1.0, 1e-5, 15.0, True),
+        ("bunny_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-3, 1.0, False),
+        ("bunny_goicp_cpu.toml", Mode.GOICP_CPU, 0.1, 1e-3, 1.0, False),
+        ("bunny_gt_goicp.toml", Mode.GOICP_GPU, 0.05, 1e-5, 1.0, False),
+        ("dragon_goicp.toml", Mode.GOICP_GPU, 0.05, 1e-5, 1.0, False),
+        ("dragon_scans_goicp.toml", Mode.GOICP_GPU, 0.05, 4e-5, 1.0, True),
+        ("skull_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-3, 0.01, True),
+        ("face_goicp.toml", Mode.GOICP_GPU, 0.1, 5e-3, 0.007, True),
+        ("spanner_goicp.toml", Mode.GOICP_GPU, 0.1, 1e-4, 0.02, True),
     ],
 )
-def test_reference_tomls_parse(name, mode, subsample, mse, resize):
-    """All five reference scenario TOMLs must parse unchanged."""
-    cfg = Config.from_toml(f"{REF_TEST}/{name}")
+def test_scenario_tomls_parse(name, mode, subsample, mse, resize, trim):
+    """Every repo scenario TOML (the reference's schema) parses with its
+    own values."""
+    cfg = Config.from_toml(str(SCENARIOS / name))
     assert cfg.mode == mode
     assert cfg.subsample == subsample
     assert cfg.mse_threshold == mse
     assert cfg.resize == resize
-    assert cfg.trim is True  # all five set trim = true
+    assert cfg.trim is trim
     assert cfg.io.output == "output.toml"
 
 
 def test_search_bounds_parsed():
     """[params.rotation]/[params.translation] are dead config in the
     reference (common.cpp:20-77 never reads them); here they are honored."""
-    cfg = Config.from_toml(f"{REF_TEST}/bunny_icp.toml")
+    cfg = Config.from_toml(str(SCENARIOS / "skull_goicp.toml"))
     assert cfg.rotation.xmin == -180
     assert cfg.rotation.search_depth == 12
     assert cfg.translation.span == 1.0
@@ -38,9 +45,11 @@ def test_search_bounds_parsed():
 
 
 def test_path_resolution():
-    cfg = Config.from_toml(f"{REF_TEST}/bunny_goicp.toml")
-    p = cfg.resolve(cfg.io.target)
-    assert p == "/root/reference/data/bunny/model_bunny.txt"
+    """io paths resolve against the TOML's own directory."""
+    cfg = Config.from_toml(str(SCENARIOS / "bunny_gt_goicp.toml"))
+    p = Path(cfg.resolve(cfg.io.target))
+    assert p == SCENARIOS.parent / "data_generated" / "rotated_bunny.ply"
+    assert p.exists()
 
 
 def test_tpu_section_defaults_and_override(tmp_path):
@@ -118,7 +127,7 @@ def test_bnb_params_enum_validation():
 def test_auto_backend_economics():
     """ONE source of truth for the auto bound-backend cutoffs, consulted by
     both the solo solver and the lockstep multipair gate (CPU test mesh:
-    no TPU, so the mxu tier is unreachable here)."""
+    no kernel route, so the mxu tier is unreachable here)."""
     from goicp_tpu.bnb import BnbParams
     from goicp_tpu.bnb.solver import auto_backend
     from goicp_tpu.multipair import lockstep_compatible

@@ -81,9 +81,9 @@ def test_sharded_round_matches_single_chip(setup, mesh_shape, h_frac):
     np.testing.assert_allclose(det, 1.0, atol=1e-3)
 
 
-def test_sharded_mxu_round_matches_single_chip(setup):
-    """The fused Pallas kernel under shard_map (interpret mode on CPU):
-    node-shard × query-column-shard blocks reproduce the single-chip
+def test_sharded_mxu_round_matches_single_chip(setup, interpret_kernels):
+    """The per-point Pallas kernel under shard_map (interpret mode on CPU):
+    node-shard × point-shard blocks reproduce the single-chip
     ``evaluate_se3_nodes_mxu`` bounds."""
     from goicp_tpu.bnb.se3 import evaluate_se3_nodes_mxu
 
@@ -119,7 +119,7 @@ def test_sharded_mxu_round_matches_single_chip(setup):
                                rtol=2e-5, atol=1e-6)
 
 
-def test_sharded_screen_round_matches_single_chip(setup):
+def test_sharded_screen_round_matches_single_chip(setup, interpret_kernels):
     """The SCREENED fused kernel under a cube-only mesh (FUTURE lever 8):
     each shard screens its own node slice against the global threshold.
     With thresh=inf the screen never fires, so bounds must equal the plain

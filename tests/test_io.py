@@ -11,7 +11,16 @@ from goicp_tpu.io import (
 )
 from goicp_tpu.io.loader import subsample_cloud
 
-REF_DATA = "/root/reference/data"
+from goicp_tpu.io.generated import DATA_DIR, load_gt, load_pair
+
+# the in-repo fixtures and the vertex counts their PLY headers state
+GENERATED = {
+    "rotated_bunny": 40256,
+    "rotated_dragon": 75305,
+    "model_skull": 98359,
+    "model_spanner": 150000,
+    "flipped_model_face": 30730,
+}
 
 
 def test_ply_roundtrip_binary(tmp_path, rng):
@@ -39,28 +48,37 @@ def test_txt_roundtrip(tmp_path, rng):
     np.testing.assert_allclose(out, pts, atol=1e-5)
 
 
-def test_reference_txt_clouds():
-    pts = read_txt(f"{REF_DATA}/bunny/model_bunny.txt")
-    assert pts.shape == (35947, 3)  # header count, BASELINE.md scene sizes
-    pts = read_txt(f"{REF_DATA}/bunny/data_bunny.txt")
-    assert pts.shape == (30379, 3)
-
-
-def test_reference_binary_ply_with_colors():
-    # binary_little_endian + uchar rgb properties (data_skull.ply header)
-    pts = read_ply(f"{REF_DATA}/artec3d/data_skull.ply")
-    assert pts.shape == (98359, 3)
+@pytest.mark.parametrize("name", sorted(GENERATED))
+def test_generated_plys_load(name):
+    """Each data_generated/ PLY (binary little-endian) loads with the
+    vertex count its header states."""
+    pts = read_ply(str(DATA_DIR / f"{name}.ply"))
+    assert pts.shape == (GENERATED[name], 3)
     assert np.isfinite(pts).all()
 
 
-def test_reference_ascii_ply():
-    # ascii + extra vertex properties (confidence/intensity) + range_grid
-    # list element after the vertices (bun000.ply)
-    pts = read_ply(f"{REF_DATA}/bunny/bun000.ply")
-    assert pts.shape == (40256, 3)
-    assert np.isfinite(pts).all()
+@pytest.mark.parametrize("name", sorted(GENERATED))
+def test_generated_gt_poses(name):
+    """Each GT TOML holds a proper rotation, and its inverse recovers a
+    source cloud that the stated transform maps back onto the target."""
+    gt = load_gt(name)
+    R = gt["R"]
+    np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-6)
+    assert np.linalg.det(R) == pytest.approx(1.0, abs=1e-6)
+    assert gt["source"] and gt["noise_std"] == 0.0
+    src, tgt, R32, t32 = load_pair(name)
+    assert src.shape == tgt.shape == (GENERATED[name], 3)
+    scale = np.abs(tgt).max()
+    np.testing.assert_allclose(src @ R32.T + t32, tgt, atol=1e-5 * scale)
+
+
+def test_generated_bunny_scan():
+    """bun000 recovered from the rotated fixture: the 40256-point scan."""
+    src, _, _, _ = load_pair("rotated_bunny")
+    assert src.shape == (40256, 3)
+    assert np.isfinite(src).all()
     # sanity: bunny is ~0.15 units tall
-    assert 0.05 < pts[:, 1].max() - pts[:, 1].min() < 0.5
+    assert 0.05 < src[:, 1].max() - src[:, 1].min() < 0.5
 
 
 def test_subsample_cap_and_determinism(rng):

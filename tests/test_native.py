@@ -75,14 +75,16 @@ def test_native_txt_roundtrip(lib, tmp_path, rng):
     assert np.allclose(read_txt(path), native)
 
 
-def test_native_txt_reads_reference_bunny(lib):
-    import os
+def test_native_txt_reads_full_scan(lib, tmp_path):
+    """The native reader on a full-size scan: bun000 (40256 points)
+    recovered from the in-repo fixture, written as text."""
+    from goicp_tpu.io.generated import load_pair
+    from goicp_tpu.io.txt import _read_txt_native, write_txt
 
-    path = "/root/repo/data/bunny/model_bunny.txt"
-    if not os.path.exists(path):
-        pytest.skip("reference data not mounted")
-    from goicp_tpu.io.txt import _read_txt_native
-
+    src, _, _, _ = load_pair("rotated_bunny")
+    path = str(tmp_path / "bun000.txt")
+    write_txt(path, src)
     pts = _read_txt_native(path)
-    assert pts is not None and pts.shape == (35947, 3)
+    assert pts is not None and pts.shape == (40256, 3)
     assert np.isfinite(pts).all()
+    np.testing.assert_allclose(pts, src, atol=1e-5)

@@ -1,4 +1,4 @@
-"""Optimality cross-check: TPU solver vs the independent numpy BnB oracle
+"""Optimality cross-check: the device solver vs the independent numpy BnB oracle
 (SURVEY §4: "optimality tests vs the CPU jly algorithm as oracle")."""
 
 import numpy as np

@@ -9,12 +9,10 @@ The pair: the REAL bunny scan (``data/bunny/data_bunny.txt``) at
 ``subsample`` as the source; the target is the same cloud under a fixed
 large rigid motion + σ=0.01 Gaussian noise.  With ``mse_threshold`` BELOW
 the noise-floor optimum (≈2.7e-4 at subsample 0.01) the solve is a pure
-ε-certification run to convergence via the gap rule — the headline shape
-(the TPU headline is ~95% certification; FUTURE.md).  The reference's own
-data-vs-model pair is NOT used because certifying it to any sub-optimum ε
-is CPU-infeasible (measured 2026-08-20: >128k nodes with min_lb still 0
-after 242 s/core at subsample 0.01) — that pair's certification is the TPU
-headline itself (bench.run_headline).
+ε-certification run to convergence via the gap rule — the headline shape.
+The reference's own data-vs-model pair is NOT used because certifying it
+to any sub-optimum ε is CPU-infeasible (>128k nodes with min_lb still 0
+after 242 s/core at subsample 0.01, on a CPU core).
 
 ``nproc == 1`` runs the plain single-host SE(3) engine — the correctness
 and efficiency baseline (make_solver auto-routes).
@@ -65,7 +63,8 @@ tgt = (
 params = BnbParams(
     mse_threshold=thr,
     bound_backend="exact",     # the CPU-fast backend (grid needs a 256³
-                               # EDT build per process; mxu is TPU-only)
+                               # EDT build per process; the kernel
+                               # backends need a GPU)
     init_multistart=16,        # lands the incumbent; the wall is the tree
     se3_pop=int(os.environ.get("GOICP_MH_POP", "256") or 256),
     refine_top_k=4,

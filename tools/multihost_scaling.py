@@ -40,6 +40,7 @@ def free_port() -> int:
 def run(nproc: int, cores_per: int, hard: bool, max_rounds: int) -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["JAX_PLATFORMS"] = "cpu"      # CPU Gloo workers: no accelerator
     if hard:
         env["GOICP_MH_HARD"] = "1"
     port = free_port()
@@ -130,8 +131,9 @@ def main():
             "(they amortize on real pods). nodes = BnB nodes actually "
             "evaluated; a distributed solve may evaluate a different "
             "total (pruning-order effects), so efficiency uses total "
-            "nodes/s. CPU Gloo allgather latency is ~10^2-10^3 x ICI — "
-            "these are LOWER bounds for TPU-pod efficiency."
+            "nodes/s. CPU Gloo allgather latency is orders of magnitude "
+            "above an accelerator interconnect's — these are LOWER bounds "
+            "for an accelerator cluster's efficiency."
         ),
     }
     out = os.path.join(REPO, "docs", "multihost_scaling.json")

@@ -12,8 +12,8 @@ scalars (plus ``[M]``-scalar psums when the point axis is sharded).  On this
 host the virtual devices share ``nproc`` physical cores and XLA's 1-device
 CPU baseline is itself partially multi-threaded, so measured efficiency is a
 LOWER bound on mesh scaling: past n_devices ≈ cores the curve is core-bound,
-not communication-bound.  On a real pod slice the collectives ride ICI and
-the per-device compute is the measured single-chip kernel rate.
+not communication-bound.  On real accelerators the collectives ride the
+interconnect and the per-device compute is the measured single-chip rate.
 
 Usage: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
        python tools/scaling_bench.py [--out docs/scaling_r02.json]
